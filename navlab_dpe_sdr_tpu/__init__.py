@@ -1,8 +1,8 @@
-"""navlab_dpe_sdr_tpu — a TPU-native GPS L1 C/A SDR with Direct Position
-Estimation.
+"""navlab_dpe_sdr_tpu — a GPS L1 C/A SDR with Direct Position Estimation,
+running in JAX on an NVIDIA GPU.
 
 A from-scratch re-design of the capabilities of Stanford-NavLab/NavLab-DPE-SDR
-(PyGNSS + CUDARecv) for TPU hardware:
+(PyGNSS + CUDARecv) for an accelerator driven from JAX:
 
 - host-side float64 numpy for time/orbit bookkeeping (libgnss/*),
 - JAX/XLA float32 device pipelines for acquisition, tracking correlators and

@@ -4,8 +4,8 @@ recorder, and radio drivers.
 Reference: cudarecv/guhd — multi-USRP clock/sync/tuning config
 (guhd.cpp:27-60), timestamped 10-minute rotating capture files
 (buffer.cpp:47-78: ``YYYYMMDD_HHMMSS_usrpN_rateKHz.dat``), and the
-module-ified live source (streamblock.cu:27-79). No RF hardware exists on
-TPU hosts, so the subsystem is interface-first:
+module-ified live source (streamblock.cu:27-79). The test and build hosts
+have no RF hardware, so the subsystem is interface-first:
 
 - ``SampleSource``: the protocol every source implements — file, TCP,
   simulated radio, SoapySDR/UHD hardware. ``next_block() -> [S, 2] int16``
@@ -207,7 +207,7 @@ class SoapyRadio(SampleSource):
     guhd.cpp:27-60: center 1575.42 MHz, 50 dB gain, external clock
     optional). Streams CS16 into [S, 2] int16 blocks.
 
-    Untestable in CI (no RF hardware / SoapySDR on TPU hosts); the class
+    Untestable in CI (no RF hardware / SoapySDR there); the class
     exists so a hardware deployment only swaps the constructor — every
     consumer (record pump, live flow, DPE receiver) sees SampleSource.
     """

@@ -175,10 +175,8 @@ class SampleFile:
 
         The hot host path for multi-second tracking chunks: a per-window
         read_block loop pays ~2000 python iterations + complex128
-        conversion per 2 s chunk (measured ~0.7 s of host per signal
-        second — the term that kept the live fleet consumers ~6 s behind
-        delivery, r5). Requires the gapless window config (T_big == T;
-        tracking always sets it)."""
+        conversion per 2 s chunk. Requires the gapless window config
+        (T_big == T; tracking always sets it)."""
         if self.S_skip:
             raise ValueError("read_chunk_raw requires T_big == T")
         n = k * self.S

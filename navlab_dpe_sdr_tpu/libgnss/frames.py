@@ -1,7 +1,7 @@
 """Coordinate frame transforms: ECEF / LLA / ECI / ENU.
 
 Host-side float64 numpy — frame math feeds time-critical scalar bookkeeping
-and grid generation, where TPU f32 precision is insufficient.
+and grid generation, where device f32 precision is insufficient.
 
 Parity: reference pygnss/pythonreceiver/libgnss/utils.py:13-320. The ECI
 rotation conventions (including the rotdot velocity terms) are reproduced

@@ -79,7 +79,7 @@ class DPEConfig:
     use_argmax: bool = True          # reference's active estimator variant
     interp: str = "quadratic"        # "linear" = exact reference parity
     engine: str = "real"             # "real" = gather/complex-free windowed
-                                     # engine (the product/TPU path, all
+                                     # engine (the product path, all
                                      # modes); "fft" = full-FFT
                                      # cross-validation oracle (complex64,
                                      # CPU-class backends, per-block mode
@@ -128,7 +128,7 @@ class _RawPrefetcher:
     A daemon thread owns the rawfile cursor: it reads each planned batch
     and uploads it with jax.device_put, keeping up to `depth` staged
     batches ahead of the consumer. This hides both disk read and the
-    host->device copy behind device compute — the TPU-native equivalent
+    host->device copy behind device compute — the equivalent
     of the reference's prio-28 reader thread filling pinned ring buffers
     (sampleblock.cu:307-463), with XLA's async dispatch replacing the
     cudaMemcpyAsync/event machinery.
@@ -1000,8 +1000,7 @@ class DPEReceiver:
             raw_dev = raw_staged                                # [N, S, 2]
             start = 0
 
-        # ONE parameter upload per batch (every host->device buffer is a
-        # fixed-latency RPC on a remote-attached accelerator)
+        # ONE parameter upload per batch
         pk = jnp.asarray(dpe_real_ops.pack_params(fpk, ipk, start))
         out = dpe_real_ops.dpe_batch_blocks(
             raw_dev, pk, self._chips_f32, self._base0,
@@ -1285,8 +1284,7 @@ class DPEReceiver:
         steering on pure prediction so a noisy per-batch argmax can never
         corrupt the window centers. The joint solve then integrates the
         whole pass: full-pass noncoherent gain extends the fix floor far
-        below the per-batch hold (measured: see SENS_DEEP artifact /
-        tests/test_survey.py weak-signal case).
+        below the per-batch hold (tests/test_survey.py weak-signal case).
 
         envelope: noise-floor equalization of the collected windows (see
         noise_envelope). "auto" (default) calibrates and applies it on
@@ -1311,7 +1309,7 @@ class DPEReceiver:
         """
         if envelope == "auto":
             # calibrate BEFORE the pass advances the receiver state; reuse
-            # the survey's blocks_per_fix so the TPU jit program is shared
+            # the survey's blocks_per_fix so the jitted program is shared
             envelope = (self.noise_envelope(blocks_per_fix=blocks_per_fix,
                                             n_batches=max(
                                                 2, 96 // blocks_per_fix))
@@ -1494,10 +1492,8 @@ class DPEReceiver:
         extra batch of prediction staleness. pipeline_depth (>=1) keeps up
         to that many dispatched batches in flight before draining the
         oldest: with the background-fetch drain each in-flight batch
-        hides one upload+fetch RPC round-trip behind device compute on
-        remote-attached accelerators — measured saturation at depth ~4
-        (69.5x -> 108x -> 111x at depths 2/4/6 on the 45 s bench, r4) —
-        at depth batches of staleness (predictions coast
+        hides one upload+fetch round trip behind device compute, at
+        depth batches of staleness (predictions coast
         depth*lookahead*T seconds between measurement feedbacks; use
         per-block mode or small depth under fast dynamics).
 
@@ -1534,12 +1530,10 @@ class DPEReceiver:
         # producer thread + pinned-ring analogue, sampleblock.cu:307-463)
         prefetch = (_RawPrefetcher(self.rawfile, sizes)
                     if raw_blocks_dev is None else None)
-        # background fetch: np.asarray(out) is a blocking device->host RPC
-        # on remote-attached runtimes (copy_to_host_async is best-effort
-        # there); a one-thread executor starts each batch's fetch at
-        # dispatch time so the RPC round-trip overlaps the next batch's
-        # host prep + device compute — the measured ~0.07 ms/block host
-        # residue of the r3 grouped segment (NOTES floor decomposition)
+        # background fetch: np.asarray(out) blocks until the batch is on
+        # the host; a one-thread executor starts each batch's fetch at
+        # dispatch time so the round trip overlaps the next batch's host
+        # prep + device compute
         import os
         from concurrent.futures import ThreadPoolExecutor
         fetcher = (ThreadPoolExecutor(1)

@@ -142,9 +142,8 @@ class ReceiverFleet:
         (0_Data_reduction.py:175-179).
 
         lookahead > 1 runs each receiver in batched mode (run_batched,
-        K blocks per device dispatch) — required to hold real time on a
-        remote-attached accelerator where a per-block dispatch pays a
-        full RPC round-trip (the same reason cli live batches)."""
+        K blocks per device dispatch), amortizing the fixed per-dispatch
+        cost over K blocks (the same reason cli live batches)."""
         from .dpe import DPEReceiver
         from .grid import spread_grid
 

@@ -1,8 +1,8 @@
-"""All-real TPU acquisition: circulant-matmul code search + windowed DFT
+"""All-real acquisition: circulant-matmul code search + windowed DFT
 fine frequency.
 
 The FFT formulation (ops.acquisition) needs complex FFTs; this engine
-reaches the same result with MXU matmuls in float32:
+reaches the same result with float32 matmuls:
 
 - the C/A code period is exactly `T_CA*fs` samples, so the Doppler-wiped
   signal folds per period and the circular correlation over all code lags is
@@ -137,7 +137,7 @@ def acquire_real(samples: np.ndarray, prns, fs: float, fcaid: float,
                  dopplers: np.ndarray | None = None, coherent: bool = True,
                  threshold: float = 2.0,
                  n_coh_ms: int | None = None) -> list[AcqResult]:
-    """Full acquisition via the real-arithmetic engine (TPU-safe).
+    """Full acquisition via the real-arithmetic engine.
 
     n_coh_ms enables deep (weak-signal) acquisition: n_coh_ms-long
     coherent folds, magnitudes summed noncoherently over however many

@@ -8,8 +8,8 @@ Stage 1 — `batch_correlate`: per channel, over one 20 ms block (S samples):
   (pygnss correlator.py:367-465) == CUDARecv BatchCorrScores
   (batchcorrscores.cu:975-1207).
 
-  TPU-native replica generation: instead of a per-sample chip lookup (an XLA
-  gather — slow on TPU and unimplemented on some backends), the replica is a
+  Gather-free replica generation: instead of a per-sample chip lookup (an
+  XLA gather), the replica is a
   circular fractional shift of the per-channel *nominal* code waveform,
   applied in the frequency domain: R_k = N_k * exp(2*pi*i*k*m/S). The shift
   m (samples) = (rc + dfc*T/2) * fs/F_CA is split into integer + fractional
@@ -24,7 +24,7 @@ Stage 2 — `score_manifolds`: scores 25^4-style position and velocity grids.
   channel's float64 *center* index once per block; grid offsets — exactly
   linear in the ENU perturbation up to a tiny quadratic range term — are
   evaluated on device in float32, and interpolation is a banded one-hot
-  weight contraction (MXU matmuls over G-chunks) against a small window of
+  weight contraction (matmuls over G-chunks) against a small window of
   the score arrays. No gathers anywhere in the hot loop.
 
 All dtypes: complex64 / float32 on device; float64 only on host.
@@ -44,7 +44,7 @@ from ..constants import C, F_CA, F_L1, L_CA
 CODE_WIN = 16   # samples of code_corr kept around each channel's center.
 # The position manifold spans ~+/-2 samples (|drange + dt| <~ 250 m at
 # 0.00834 samples/m), so 16 leaves 4x margin while quartering the
-# score-interpolation weight construction (the VPU-bound hot loop).
+# score-interpolation weight construction (the elementwise-bound hot loop).
 CARR_WIN = 48   # carrier FFT bins kept around each channel's center.
 # The velocity manifold spans ~+/-15 bins on the reference grids (|dv| +
 # |dtdot| <~ 13.5 m/s at 1.1 bins per m/s), leaving ~+/-9 bins (~43 Hz) of
@@ -211,7 +211,7 @@ def _interp_scores(win_mag: jax.Array, idx: jax.Array, mode: str,
 
     win_mag: [C, W] float32 (|complex| of the score window); idx: [C, G].
     Returns [G]. Chunked over G so the weight tensor stays small; each chunk
-    is an MXU contraction [C, CHUNK, W] x [C, W] -> [C, CHUNK].
+    is a contraction [C, CHUNK, W] x [C, W] -> [C, CHUNK].
     """
     c, g = idx.shape
     w = win_mag.shape[1]

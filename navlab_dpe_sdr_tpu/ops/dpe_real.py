@@ -86,12 +86,10 @@ def _period_replicas(chips, rc_mid, period: int):
     chips2 = jnp.concatenate([chips, chips], axis=1)      # [C, 2*1023]
 
     # circular roll by `shift` via a two-stage one-hot contraction instead
-    # of a vmapped dynamic_slice: slicing a SHARED operand with per-example
-    # starts lowers to a gather, which this TPU runtime emulates ~100x
-    # slower than the equivalent [32]-wide selects (measured 6.9 ms vs
-    # 0.1 ms per 50-block batch). shift = 32*a + b; stage b is 32 static
-    # slices of the chips (loop-invariant, hoisted), stage a 32 static
-    # slices of the per-block intermediate.
+    # of a vmapped dynamic_slice (which lowers to a gather over a shared
+    # operand). shift = 32*a + b; stage b is 32 static slices of the chips
+    # (loop-invariant, hoisted), stage a 32 static slices of the
+    # per-block intermediate.
     sh = jnp.mod(shift, l_ca)
     sh_a, sh_b = sh // 32, sh % 32
     n_sub = 32
@@ -323,16 +321,14 @@ def _windowed_correlate_direct(raw_re, raw_im, chips, base0, rc_mid, idx_next,
 def _dft_twiddles_mixed(vel_start, fi, ri, dt_s, f_total: int, s1_n: int,
                         s0_n: int, carr_win: int, t0=0.0):
     """Two-stage (s0_n-way split) carrier-DFT twiddles with the wipeoff
-    folded in — the non-TPU branch of the windowed carrier DFT.
+    folded in.
 
     Combined phase per sample: the integer-exact window-bin phase
     2*pi*(k*s mod F)/F PLUS the carrier-wipeoff phase
     2*pi*(fi*(t0 + s*dt) + ri), split over s = s0_n*s1 + s0. This split
     materializes the full-length wipeoff product but keeps the per-stage
-    intermediates tiny ([C, W, 256]) — the CACHE-friendly shape: on the
-    CPU mesh it measured ~30 % faster than the period split, while on
-    TPU the period split wins by eliminating the [C, S] HBM traffic
-    (r5 A/B, NOTES)."""
+    intermediates tiny ([C, W, 256]). It measured faster on an H100 than
+    a split along the code period that never forms the [C, S] product."""
     j = jax.lax.broadcasted_iota(jnp.int32, (1, carr_win), 1)
     k = jnp.mod(vel_start[:, None] + j - np.int32(f_total // 2),
                 np.int32(f_total))                        # [C, W]
@@ -351,67 +347,6 @@ def _dft_twiddles_mixed(vel_start, fi, ri, dt_s, f_total: int, s1_n: int,
     ang_b = (ph_b * np.float32(2.0 * np.pi / f_total)
              + two_pi * (fi[:, None, None] * t_b + ri[:, None, None]))
     return (jnp.cos(ang_a), jnp.sin(ang_a), jnp.cos(ang_b), jnp.sin(ang_b))
-
-
-@functools.lru_cache(maxsize=8)
-def _dft_wconst(f_total: int, period: int, carr_win: int):
-    """Constant window-offset DFT twiddles e^{-2pi i w tau / F} [W, P0].
-
-    The carrier window's W bins are CONSECUTIVE (k_cw = k0_c + w), so the
-    bin phase splits k*tau = k0*tau + w*tau: the w part depends only on
-    (w, tau) — one [W, P0] table shared across channels AND blocks, a
-    compile-time constant (np at trace time)."""
-    w = np.arange(carr_win, dtype=np.int64)[:, None]
-    tau = np.arange(period, dtype=np.int64)[None, :]
-    ang = (2.0 * np.pi / f_total) * ((w * tau) % f_total)
-    return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
-
-
-def _dft_twiddles_period(vel_start, fi, ri, dt_s, f_total: int,
-                         n_periods: int, period: int, carr_win: int,
-                         t0=0.0):
-    """Period-split carrier-DFT twiddles (wipeoff folded in).
-
-    Same combined phase as the r1-r4 mixed (196 x 256) split but along
-    the CODE PERIOD: s = p*P0 + tau. Returns the period-axis factor
-    a_cos/a_sin [C, W, P] (phase k*P0*p + 2pi*fi*p*P0*dt) and the
-    channel tau-axis factor q_cos/q_sin [C, P0] (phase k0*tau +
-    2pi*(fi*(t0 + tau*dt) + ri), k0 = first window bin); the remaining
-    w*tau part is the constant _dft_wconst table. The product of the
-    three e^{-i.} factors equals the mixed-split twiddles exactly (all
-    integer bin phases via int32-safe nested mods). This split lets the
-    flip signs fold into the [C, W, P] factor so the DFT input stays the
-    SHARED [P, P0] raw reshape — no [C, S] (or [N, C, S] batched)
-    tensor is ever materialized (the r5 correlation-floor lever)."""
-    j = jax.lax.broadcasted_iota(jnp.int32, (1, carr_win), 1)
-    f = np.int32(f_total)
-    two_pi = np.float32(2.0 * np.pi)
-    k = jnp.mod(vel_start[:, None] + j - np.int32(f_total // 2), f)
-
-    # period factor: k*P0 mod F (k*P0 <= F*P0 ~ 1.3e9, int32-safe), then
-    # * p <= n_periods (small)
-    p = jax.lax.broadcasted_iota(jnp.int32, (1, 1, n_periods), 2)
-    kp0 = jnp.mod(k * np.int32(period), f)                  # [C, W]
-    ph_a = jnp.mod(kp0[:, :, None] * p, f).astype(jnp.float32)
-    t_a = p.astype(jnp.float32) * np.float32(period) * dt_s
-    ang_a = (ph_a * np.float32(2.0 * np.pi / f_total)
-             + two_pi * fi[:, None, None] * t_a)
-
-    # channel tau factor: k0*tau mod F via a nested split (k0 < F and
-    # tau < P0 overflow int32 multiplied directly)
-    k0 = k[:, 0]                                            # [C]
-    q0 = 64
-    t1 = jax.lax.broadcasted_iota(jnp.int32, (1, period), 1) // np.int32(q0)
-    t0i = jax.lax.broadcasted_iota(jnp.int32, (1, period), 1) % np.int32(q0)
-    m1 = jnp.mod(k0 * np.int32(q0), f)                      # [C]
-    ph_q = jnp.mod(m1[:, None] * t1 + k0[:, None] * t0i,
-                   f).astype(jnp.float32)                   # [C, P0]
-    tau_t = (t0 + jax.lax.broadcasted_iota(jnp.int32, (1, period), 1)
-             .astype(jnp.float32) * dt_s)
-    ang_q = (ph_q * np.float32(2.0 * np.pi / f_total)
-             + two_pi * (fi[:, None] * tau_t + ri[:, None]))
-    return (jnp.cos(ang_a), jnp.sin(ang_a),
-            jnp.cos(ang_q), jnp.sin(ang_q))
 
 
 @functools.partial(jax.jit,
@@ -438,20 +373,15 @@ def windowed_correlate(raw_re, raw_im, chips, base0, rc_mid, idx_next,
     [n_periods, P0] raw reshape followed by one [C, P0] rotation, the
     nav-bit tail fold the same with masked weights plus one exact
     boundary-period term, the lag-0 flip decision reads off the folds, and
-    the carrier wipeoff folds into the DFT twiddles. On TPU the DFT uses
-    the period split (_dft_twiddles_period + _dft_wconst, flip signs in
-    the period factor): no [C, S]-sized tensor remains anywhere in the
-    step — the DFT consumes the SHARED [n_periods, P0] raw reshape
-    (eliminates the dominant HBM term). Elsewhere the 256-way mixed
-    split keeps intermediates cache-resident (~30 % faster on the CPU
-    mesh, r5 A/B). Contract: time_idc must be uniform/affine
-    (t0 + s*dt); t0 may be nonzero (e.g. io/rawfile.py samp_idc/fs
-    mid-file). Equivalence to the direct form
+    the carrier wipeoff folds into the DFT twiddles of a 256-way mixed
+    split (_dft_twiddles_mixed). Contract: time_idc must be
+    uniform/affine (t0 + s*dt); t0 may be nonzero (e.g. io/rawfile.py
+    samp_idc/fs mid-file). Equivalence to the direct form
     (_windowed_correlate_direct) is tested in tests/test_dpe_real.py
-    (test_windowed_matches_direct); on TPU the fold contractions run as
-    MXU matmuls at default precision (bf16 operands, f32 accumulate), so
-    agreement is at the ~1e-3-relative bf16-rounding class — far below
-    score noise — with identical argmaxes/flip decisions; on CPU it is
+    (test_windowed_matches_direct) and on the GPU by chip_smoke.py: the
+    fold contractions run at JAX's default matmul precision, which a GPU
+    may execute as TF32, so agreement there is at the ~1e-4-relative
+    class, with identical argmaxes and flip decisions; on CPU it is
     f32-reassociation-exact (~1e-6)."""
     s = raw_re.shape[0]
     c = chips.shape[0]
@@ -530,8 +460,7 @@ def windowed_correlate(raw_re, raw_im, chips, base0, rc_mid, idx_next,
     # window lags: m_w = m0 + w is CONSECUTIVE in w, so the W lag rows are
     # consecutive shifts of one periodic slice — one dynamic slice per
     # channel + W static shifts, instead of W vmapped dynamic slices per
-    # channel (each lowers to a slow emulated gather on this runtime;
-    # measured ~1 ms per lag per 50-block batch)
+    # channel (each a gather)
     l = jax.lax.broadcasted_iota(jnp.int32, (1, code_win), 1)
     m0 = pos_start - np.int32(s // 2)                       # [C] first lag
     m_signed = m0[:, None] + l                              # [C, W]
@@ -629,120 +558,37 @@ def windowed_correlate(raw_re, raw_im, chips, base0, rc_mid, idx_next,
         code_mag = jnp.sqrt(w_re * w_re + w_im * w_im)
 
     # ---- carrier windowed DFT (wipeoff folded into the twiddles) --------
-    # Two equivalent splits, chosen per backend at trace time:
-    # - TPU: period split — DFT_w = sum_p sum_tau with the flip's
-    #   whole-period signs folded into the [C, W, P] period factor and
-    #   the partial boundary period corrected exactly; the DFT input
-    #   stays the SHARED [P, P0] raw reshape, so no [C, S] tensor (or
-    #   [N, C, S] under the batched vmap) is materialized (the mixed
-    #   split wrote + re-read ~320 MB of yb per 50-block batch — the
-    #   dominant HBM term of the correlation floor; r5: 0.402 -> 0.390
-    #   ms/block dispatch).
-    # - elsewhere AND for complex_out: the 256-way mixed split — it
-    #   materializes the full-length wipeoff product but keeps per-stage
-    #   intermediates at [C, W, 256] (cache-resident on CPU: ~30 %
-    #   faster there; and measured ~9 % faster than the period split for
-    #   the grouped complex-window variant on TPU too — 0.173 vs 0.188
-    #   ms/block full_g5, r5 A/B — while the period split wins the
-    #   per-block magnitude variant 0.390 vs 0.402).
     mean_re = jnp.mean(raw_re)
     mean_im = jnp.mean(raw_im)
     dt_s = (time_idc[s - 1] - time_idc[0]) / np.float32(s - 1)
-    if jax.default_backend() != "tpu" or complex_out:
-        repl = jnp.tile(p_repl, (1, n_periods))             # [C, S]
-        cols = jax.lax.broadcasted_iota(jnp.int32, (1, s), 1)
-        flip_sign = 1.0 - 2.0 * (cols >= idx_next[:, None]).astype(
-            jnp.float32)
-        repl_chosen = jnp.where(use_flip[:, None], repl * flip_sign, repl)
-        yb_re = (raw_re[None, :] - mean_re) * repl_chosen   # [C, S]
-        yb_im = (raw_im[None, :] - mean_im) * repl_chosen
-        s0_n = 256
-        s1_n = -(-s // s0_n)
-        pad = s1_n * s0_n - s
-        yb_re_p = jnp.pad(yb_re, ((0, 0), (0, pad))).reshape(c, s1_n, s0_n)
-        yb_im_p = jnp.pad(yb_im, ((0, 0), (0, pad))).reshape(c, s1_n, s0_n)
-        a_cos, a_sin, b_cos, b_sin = _dft_twiddles_mixed(
-            vel_start, fi, ri, dt_s, carr_fftpts, s1_n, s0_n, carr_win,
-            t0=time_idc[0])
-        z_re = (jnp.einsum("cws,cst->cwt", a_cos, yb_re_p,
-                           preferred_element_type=jnp.float32)
-                + jnp.einsum("cws,cst->cwt", a_sin, yb_im_p,
-                             preferred_element_type=jnp.float32))
-        z_im = (jnp.einsum("cws,cst->cwt", a_cos, yb_im_p,
-                           preferred_element_type=jnp.float32)
-                - jnp.einsum("cws,cst->cwt", a_sin, yb_re_p,
-                             preferred_element_type=jnp.float32))
-        x_re = jnp.sum(z_re * b_cos + z_im * b_sin, axis=2)
-        x_im = jnp.sum(z_im * b_cos - z_re * b_sin, axis=2)
-        if complex_out:
-            return RealBlockOutC(code_re=w_re, code_im=w_im,
-                                 carr_re=x_re, carr_im=x_im,
-                                 flip_used=use_flip)
-        carr_mag = jnp.sqrt(x_re * x_re + x_im * x_im)
-        return RealBlockOut(code_mag=code_mag, carr_mag=carr_mag,
-                            flip_used=use_flip)
-
-    rawm_p = raw_p - mean_re                                # [P, P0]
-    rawm_ip = raw_ip - mean_im
-    a_cos, a_sin, q_cos, q_sin = _dft_twiddles_period(
-        vel_start, fi, ri, dt_s, carr_fftpts, n_periods, period, carr_win,
+    repl = jnp.tile(p_repl, (1, n_periods))                 # [C, S]
+    cols = jax.lax.broadcasted_iota(jnp.int32, (1, s), 1)
+    flip_sign = 1.0 - 2.0 * (cols >= idx_next[:, None]).astype(jnp.float32)
+    repl_chosen = jnp.where(use_flip[:, None], repl * flip_sign, repl)
+    yb_re = (raw_re[None, :] - mean_re) * repl_chosen       # [C, S]
+    yb_im = (raw_im[None, :] - mean_im) * repl_chosen
+    s0_n = 256
+    s1_n = -(-s // s0_n)
+    pad = s1_n * s0_n - s
+    yb_re_p = jnp.pad(yb_re, ((0, 0), (0, pad))).reshape(c, s1_n, s0_n)
+    yb_im_p = jnp.pad(yb_im, ((0, 0), (0, pad))).reshape(c, s1_n, s0_n)
+    a_cos, a_sin, b_cos, b_sin = _dft_twiddles_mixed(
+        vel_start, fi, ri, dt_s, carr_fftpts, s1_n, s0_n, carr_win,
         t0=time_idc[0])
-    wc_np, ws_np = _dft_wconst(carr_fftpts, period, carr_win)
-    wc_t, ws_t = jnp.asarray(wc_np), jnp.asarray(ws_np)     # [W, P0]
-
-    # whole-period flip signs in the period factor (+1 everywhere when
-    # the no-flip hypothesis won)
-    g0 = jnp.where(use_flip[:, None], 1.0 - 2.0 * maskp, 1.0)   # [C, P]
-    aw_cos = a_cos * g0[:, None, :]
-    aw_sin = a_sin * g0[:, None, :]
-    inner_re = (jnp.einsum("cwp,pt->cwt", aw_cos, rawm_p,
-                           preferred_element_type=jnp.float32)
-                + jnp.einsum("cwp,pt->cwt", aw_sin, rawm_ip,
-                             preferred_element_type=jnp.float32))
-    inner_im = (jnp.einsum("cwp,pt->cwt", aw_cos, rawm_ip,
-                           preferred_element_type=jnp.float32)
-                - jnp.einsum("cwp,pt->cwt", aw_sin, rawm_p,
-                             preferred_element_type=jnp.float32))
-
-    # exact partial-period correction: within the boundary period p_b the
-    # true sign for tau >= r_off is -1 while g0 used +1 -> add
-    # -2 * A'[p_b] * (raw[p_b] - mean) over that arc (use_flip only)
-    def aw_at(mat, st):
-        return jax.lax.dynamic_slice(mat, (0, st), (mat.shape[0], 1))[:, 0]
-
-    a_cos_b = jax.vmap(aw_at)(a_cos, p_bc)                  # [C, W]
-    a_sin_b = jax.vmap(aw_at)(a_sin, p_bc)
-    rbm_re = raw_b_re - mean_re                             # [C, P0]
-    rbm_im = raw_b_im - mean_im
-    fmask = gmask * use_flip.astype(jnp.float32)[:, None]   # [C, P0]
-    inner_re = inner_re - 2.0 * (
-        a_cos_b[:, :, None] * (fmask * rbm_re)[:, None, :]
-        + a_sin_b[:, :, None] * (fmask * rbm_im)[:, None, :])
-    inner_im = inner_im - 2.0 * (
-        a_cos_b[:, :, None] * (fmask * rbm_im)[:, None, :]
-        - a_sin_b[:, :, None] * (fmask * rbm_re)[:, None, :])
-
-    # channel tau factor x code replica, then the constant w*tau factor
-    # with the final tau reduction (fused elementwise + two contractions)
-    qp_cos = q_cos * p_repl                                 # [C, P0]
-    qp_sin = q_sin * p_repl
-    y_re = (qp_cos[:, None, :] * inner_re
-            + qp_sin[:, None, :] * inner_im)                # [C, W, P0]
-    y_im = (qp_cos[:, None, :] * inner_im
-            - qp_sin[:, None, :] * inner_re)
-    x_re = (jnp.einsum("cwt,wt->cw", y_re, wc_t,
+    z_re = (jnp.einsum("cws,cst->cwt", a_cos, yb_re_p,
                        preferred_element_type=jnp.float32)
-            + jnp.einsum("cwt,wt->cw", y_im, ws_t,
+            + jnp.einsum("cws,cst->cwt", a_sin, yb_im_p,
                          preferred_element_type=jnp.float32))
-    x_im = (jnp.einsum("cwt,wt->cw", y_im, wc_t,
+    z_im = (jnp.einsum("cws,cst->cwt", a_cos, yb_im_p,
                        preferred_element_type=jnp.float32)
-            - jnp.einsum("cwt,wt->cw", y_re, ws_t,
+            - jnp.einsum("cws,cst->cwt", a_sin, yb_re_p,
                          preferred_element_type=jnp.float32))
+    x_re = jnp.sum(z_re * b_cos + z_im * b_sin, axis=2)
+    x_im = jnp.sum(z_im * b_cos - z_re * b_sin, axis=2)
     if complex_out:
         return RealBlockOutC(code_re=w_re, code_im=w_im,
                              carr_re=x_re, carr_im=x_im, flip_used=use_flip)
     carr_mag = jnp.sqrt(x_re * x_re + x_im * x_im)
-
     return RealBlockOut(code_mag=code_mag, carr_mag=carr_mag,
                         flip_used=use_flip)
 
@@ -796,10 +642,10 @@ def dpe_device_step_real(raw_re, raw_im, chips, base0, rc_mid, idx_next,
 # ---------------------------------------------------------------------------
 # Batched multi-block scan (deferred feedback).
 #
-# A remote/accelerator-attached host pays a fixed latency per host->device
-# transfer, so the per-block loop packs all per-channel parameters for N
-# blocks into ONE array, keeps the raw sample blocks device-resident, and
-# runs the fused step over the batch in ONE dispatch. Feedback (EKF
+# Every host->device transfer and dispatch has a fixed cost, so the batched
+# loop packs all per-channel parameters for N blocks into ONE array, keeps
+# the raw sample blocks device-resident, and runs the fused step over the
+# batch in ONE dispatch. Feedback (EKF
 # measurement -> channel steering) is applied at batch boundaries; within a
 # batch, predictions are propagated from the batch-start fix. The score
 # windows (several samples/bins wide beyond the grid span) dwarf the
@@ -811,9 +657,8 @@ def dpe_device_step_real(raw_re, raw_im, chips, base0, rc_mid, idx_next,
 FPK_ROWS = 11  # rc_mid, fi, ri, los_e, los_n, los_u, r0, pos_c, pos_k, vel_c, vel_k
 IPK_ROWS = 3   # idx_next, pos_start, vel_start
 PK_ROWS = FPK_ROWS + IPK_ROWS + 1  # + start row: ONE upload per batch.
-# The int rows ride as float32 (all values < 2^24, exact); on a
-# remote-attached accelerator every host->device buffer is a fixed-latency
-# RPC, so fpk/ipk/start are packed into a single [N, PK_ROWS, C] array.
+# The int rows ride as float32 (all values < 2^24, exact), so fpk/ipk/start
+# travel as a single [N, PK_ROWS, C] upload.
 
 
 def pack_params(fpk, ipk, start: int) -> np.ndarray:
@@ -834,43 +679,10 @@ def _unpack_params(pk):
     return fpk, ipk, start
 
 
-import os as _os
-
-# Grid points per chunk in the block-batched scorer, per backend. The TPU
-# default is pinned at 8192 (changing it changes every jit signature —
-# expensive on runtimes with per-program warmup; HBM streams don't care
-# about chunk size). On CPU the scoring tensor [N, C, chunk, W] must fit
-# the cache hierarchy: chunk 1024 measured 1.7x faster than 8192 single
-#-core and lifts the 4-device pure-'grid' mesh efficiency 0.60 -> 0.85
-# (product regime, r4) — small chunks keep each core's working set in
-# L2 instead of thrashing the shared L3/DRAM. Env override for studies.
-_BATCH_CHUNK_ENV = _os.environ.get("NAVLAB_BATCH_CHUNK")
-_BATCH_CHUNK = int(_BATCH_CHUNK_ENV) if _BATCH_CHUNK_ENV else None
-
-
-def _default_chunk() -> int:
-    if _BATCH_CHUNK is not None:
-        return _BATCH_CHUNK
-    return 8192 if jax.default_backend() == "tpu" else 1024
-
-# Tap-operand dtype for the 3-tap scorer. None = auto at trace time:
-# bfloat16 on TPU (the one-hot is exact in bf16, window values round at
-# ~0.4% — far below score noise — and the MXU contraction runs 2x faster;
-# accumulation stays float32 via preferred_element_type), float32 on
-# CPU/GPU. jnp.int8 selects the quantized path (one-hot exact, windows
-# at max/127 per block-channel — HALF the HBM traffic of bf16 on the
-# scorer's bottleneck tensor; see _score_chunk). Set via this module
-# attribute (tests pin float32 for bitwise comparisons) or the
-# NAVLAB_SCORE_TAPS env var (f32 | bf16 | int8).
-_TAPS_ENV = {"f32": jnp.float32, "bf16": jnp.bfloat16,
-             "int8": jnp.int8}.get(_os.environ.get("NAVLAB_SCORE_TAPS", ""))
-SCORE_TAP_DTYPE = _TAPS_ENV
-
-
-def _tap_dtype():
-    if SCORE_TAP_DTYPE is not None:
-        return SCORE_TAP_DTYPE
-    return jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+# Grid points per scan chunk of the block-batched scorer: peak live memory
+# is one [N, C, SCORE_CHUNK, W] one-hot tensor. 8192 scored the product
+# batch faster than 1024 on an H100 (CHANGES.md).
+SCORE_CHUNK = 8192
 
 
 def _score_chunk(win_mag, los_enu, centers, coefs, r0, o3, o1,
@@ -894,36 +706,19 @@ def _score_chunk(win_mag, los_enu, centers, coefs, r0, o3, o1,
         # 3-tap form: ONE one-hot compare over [N,C,chunk,W] plus a
         # 3-column dot against shifted windows, instead of materializing
         # the full banded weight tensor (6 selects/element) — the scorer
-        # is VPU-elementwise-bound on that tensor, so this is ~4x cheaper.
+        # is elementwise-bound on that tensor.
         k0 = jnp.clip(jnp.round(idx), 1.0, w - 2.0)     # [N,C,chunk]
         d = idx - k0
         k = jax.lax.broadcasted_iota(jnp.float32, (1, 1, 1, w), 3)
-        tap_dt = _tap_dtype()
         zeros = jnp.zeros_like(win_mag[:, :, :1])
         win_taps = jnp.stack([
             jnp.concatenate([zeros, win_mag[:, :, :-1]], axis=2),  # win[k-1]
             win_mag,                                               # win[k]
             jnp.concatenate([win_mag[:, :, 1:], zeros], axis=2),   # win[k+1]
         ], axis=-1)                                     # [N,C,W,3]
-        if tap_dt == jnp.int8:
-            # int8 one-hot path: the scorer is HBM-bound on the one-hot
-            # tensor, and the one-hot is EXACT in any integer dtype —
-            # int8 halves its traffic vs bf16. Windows quantize per
-            # (block, channel) at max/127 (~0.8% of peak — the same
-            # class as bf16's 0.4% rounding, far below score noise);
-            # the MXU contracts int8 x int8 -> int32 and the scale is
-            # restored per (n, c) afterwards.
-            oh = (k0[..., None] == k).astype(jnp.int8)
-            scale = jnp.max(win_taps, axis=(2, 3)) / 127.0   # [N, C]
-            wq = jnp.round(win_taps / scale[..., None, None]
-                           ).astype(jnp.int8)
-            taps = jnp.einsum("ncgw,ncwt->ncgt", oh, wq,
-                              preferred_element_type=jnp.int32)
-            taps = taps.astype(jnp.float32) * scale[..., None, None]
-        else:
-            oh = (k0[..., None] == k).astype(tap_dt)    # [N,C,chunk,W]
-            taps = jnp.einsum("ncgw,ncwt->ncgt", oh, win_taps.astype(tap_dt),
-                              preferred_element_type=jnp.float32)
+        oh = (k0[..., None] == k).astype(jnp.float32)   # [N,C,chunk,W]
+        taps = jnp.einsum("ncgw,ncwt->ncgt", oh, win_taps,
+                          preferred_element_type=jnp.float32)
         d2_ = d * d
         vals = (0.5 * (d2_ - d) * taps[..., 0]
                 + (1.0 - d2_) * taps[..., 1]
@@ -966,7 +761,7 @@ def _constrain_chan(mesh, out: "RealBlockOut", los_enu, fpk):
         # assign a block-axis tiling to the tiny post-correlation tensors,
         # and a direct tiled->tiled reshard on misaligned dims triggers an
         # SPMD involuntary full rematerialization warning; via replicated
-        # it is one all-gather + a local slice (r4 verdict item #1)
+        # it is one all-gather + a local slice
         x = jax.lax.with_sharding_constraint(x, NamedSharding(mesh, P()))
         return jax.lax.with_sharding_constraint(x, s)
     out = RealBlockOut(code_mag=cst(out.code_mag, c3),
@@ -1002,8 +797,7 @@ def _constrain_block_axis(mesh, tree, axis_ok=True):
 
     The correlation stage has no grid axis, so on a pure-'grid' mesh it
     would otherwise run fully REPLICATED on every device — an Amdahl
-    floor that caps strong scaling at small grids (measured r3: 0.60
-    efficiency at 4 devices on the product 25^4 regime). Blocks are
+    floor that caps strong scaling at small grids. Blocks are
     independent through correlation, so the same devices data-parallel
     over the block axis here, then re-gather the tiny [N, C, W] windows
     (a few hundred KB) for grid-sharded scoring — two cheap collectives
@@ -1035,10 +829,9 @@ def _local_argmax_scan(win_mag, los_enu, centers, coefs, r0, off3, off1,
     psum_axis: mesh axis name carrying a channel shard (the C contraction
     completes with a psum) — used inside shard_map only. psum_group: with
     a psum_axis, score that many chunks per scan step and reduce them in
-    ONE collective — per-collective latency (CPU-mesh thread barriers,
-    ICI launch latency) otherwise dominates the chan-sharded scorer
-    (~135 us x 2 manifolds x G/chunk per batch, measured r3); the scoring
-    math and first-occurrence tie-break are unchanged.
+    ONE collective — per-collective latency otherwise dominates the
+    chan-sharded scorer (2 manifolds x G/chunk collectives per batch); the
+    scoring math and first-occurrence tie-break are unchanged.
     weighted=True also accumulates sum(score * [o3, o1]) [.., 4] and
     sum(score) [..] over the grid — the score-weighted-mean estimator of
     reference BCM_PosMeas/BCM_VelMeas (batchcorrmanifold.cu:348-784,
@@ -1175,9 +968,8 @@ def _score_axis_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
 
     Returns (best [N] f32, arg [N] i32) (+ (wsum4 [N,4], wtot [N]) when
     weighted). With a mesh, each device scans its own grid slice (see
-    _score_axis_sharded). chunk=None resolves per backend
-    (_default_chunk)."""
-    chunk = chunk or _default_chunk()
+    _score_axis_sharded). chunk=None means SCORE_CHUNK."""
+    chunk = chunk or SCORE_CHUNK
     if mesh is not None and int(mesh.shape["grid"]) > 1:
         return _score_axis_sharded(win_mag, los_enu, centers, coefs, r0,
                                    off3, off1, interp, l_power, chunk,
@@ -1197,9 +989,9 @@ def _score_axis_accumulate(win_mag, los_enu, centers, coefs, r0, off3, off1,
 
     Streams grid chunks (peak memory independent of G) and reduces the
     block axis inside each chunk. Returns (best f32, arg i32) scalars
-    (+ (wsum4 [4], wtot) when weighted). chunk=None resolves per backend.
+    (+ (wsum4 [4], wtot) when weighted). chunk=None means SCORE_CHUNK.
     """
-    chunk = chunk or _default_chunk()
+    chunk = chunk or SCORE_CHUNK
     if mesh is not None and int(mesh.shape["grid"]) > 1:
         return _score_axis_sharded(win_mag, los_enu, centers, coefs, r0,
                                    off3, off1, interp, l_power, chunk,
@@ -1248,8 +1040,8 @@ def dpe_batch_blocks(raw_all_i16, pk, chips, base0, time_idc,
     one vmapped pass, but each group of group_k consecutive blocks is
     coherently summed (complex windows, data-aided nav-bit alignment —
     _coherent_sum) before manifold scoring, returning n_blocks/group_k
-    rows. Manifold scoring is the HBM-bound majority of the dispatch
-    (~13.9 of ~24 ms at 50-block/25^4 product shape, measured r3), so
+    rows. Manifold scoring is the memory-bound majority of the dispatch
+    (CHANGES.md: ~23x the correlation per block on an H100), so
     scoring once per K blocks instead of per block is the throughput
     lever past the per-block scorer's traffic floor; accuracy at
     practical C/N0 matches per-block fixes (see dpe_scan_integrate:
@@ -1267,7 +1059,7 @@ def dpe_batch_blocks(raw_all_i16, pk, chips, base0, time_idc,
                                 complex_out=True, mesh=mesh)
         # gather the tiny complex windows to replicated BEFORE the grouped
         # reshape: a sharded [N]@grid -> [g, group_k] reshape forces an SPMD
-        # involuntary full rematerialization (r4 verdict item #1); replicated,
+        # involuntary full rematerialization; replicated,
         # the reshape is free and the coherent sum is negligible compute
         outc = _constrain_replicated(mesh, outc)
         outg = jax.vmap(_coherent_sum)(RealBlockOutC(

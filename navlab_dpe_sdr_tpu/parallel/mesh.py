@@ -10,7 +10,7 @@ The sharded step is a single jitted computation with sharding constraints;
 XLA GSPMD inserts the collectives (all-gather of the tiny per-channel score
 windows, sharded grid scoring, global argmax combine). Grid-point state is
 never communicated — only the [C, W] windows (a few KB) and the 8-vector
-argmax result cross the ICI.
+argmax result cross the interconnect between devices (NVLink on GPUs).
 """
 
 from __future__ import annotations

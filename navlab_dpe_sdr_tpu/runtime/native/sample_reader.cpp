@@ -3,8 +3,7 @@
 // blocks with a timeout. Equivalent of CUDARecv's SampleBlock
 // (sampleblock.cu:307-515): N-deep ring, producer/consumer semaphores,
 // fail-fast 1.5 s timeout, clean EOF drain. Host buffers only — the device
-// copy is the Python side's job (jax device_put), since the TPU path has no
-// CUDA-style pinned-pointer interface.
+// copy is the Python side's job (jax device_put).
 //
 // C ABI for ctypes. Build: make -C navlab_dpe_sdr_tpu/runtime/native
 

@@ -1,12 +1,14 @@
 """ctypes bindings for the native runtime (sample streamer + async logger).
 
-The shared library builds on first use (make, ~1 s); if no C++ toolchain is
-available the callers fall back to the pure-Python paths.
+The shared library is built by make from the sources in native/ on first
+use in a process (make is a no-op when it is current); if no C++ toolchain
+is available the callers fall back to the pure-Python paths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import pathlib
 import subprocess
@@ -26,12 +28,16 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB.exists():
-        try:
+    # always through make (a no-op when current): a library left behind by
+    # other sources is rebuilt from the committed ones. The lock keeps
+    # concurrent processes from writing the library at the same time.
+    try:
+        with open(_DIR / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
             subprocess.run(["make", "-C", str(_DIR)], check=True,
                            capture_output=True)
-        except Exception as e:  # no toolchain / build failure
-            raise NativeUnavailable(f"cannot build native runtime: {e}")
+    except (OSError, subprocess.CalledProcessError) as e:
+        raise NativeUnavailable(f"cannot build native runtime: {e}")
     lib = ctypes.CDLL(str(_LIB))
     lib.sr_open.restype = ctypes.c_void_p
     lib.sr_open.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,

@@ -69,7 +69,7 @@ def test_acquire_full_capture(rinex_path, handoff_path):
 
 
 def test_acquire_real_engine_matches_fft():
-    """All-real acquisition (TPU-safe) must agree with the FFT engine."""
+    """All-real acquisition must agree with the FFT engine."""
     from navlab_dpe_sdr_tpu.ops.acquisition_real import acquire_real
     n = 25000
     rc_true, fi_true = 512.25, 1750.0

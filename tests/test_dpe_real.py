@@ -331,42 +331,6 @@ def test_integrated_mode_holds_weak_signal():
     assert e_int < 0.8 * e_pb, (e_int, e_pb)
 
 
-def test_bf16_tap_scoring_matches_f32():
-    """The TPU fast path scores with bfloat16 tap operands (f32 accumulate).
-    On realistic peaked windows the argmax must match the f32 path and the
-    peak score must agree to bf16 rounding (~0.4%)."""
-    import jax.numpy as jnp
-    from navlab_dpe_sdr_tpu.ops import dpe_real as dr
-
-    rng = np.random.default_rng(7)
-    n_b, c, w, g = 3, 8, 16, 4000
-    # peaked correlation-like windows + noise
-    lag = np.arange(w) - (w / 2)
-    win = (1e4 * np.maximum(0, 1 - np.abs(lag) / 4.0)[None, None, :]
-           + rng.standard_normal((n_b, c, w)) * 300.0).astype(np.float32)
-    los = rng.standard_normal((n_b, c, 3)).astype(np.float32)
-    centers = np.full((n_b, c), w / 2, np.float32)
-    coefs = np.full((n_b, c), 0.05, np.float32)
-    r0 = np.full((n_b, c), 2.0e7, np.float32)
-    off3 = (rng.standard_normal((g, 3)) * 40).astype(np.float32)
-    off1 = (rng.standard_normal(g) * 40).astype(np.float32)
-
-    out = {}
-    for dt in (jnp.float32, jnp.bfloat16):
-        dr.SCORE_TAP_DTYPE = dt
-        try:
-            best, arg = dr._score_axis_argmax(
-                jnp.asarray(win), jnp.asarray(los), jnp.asarray(centers),
-                jnp.asarray(coefs), jnp.asarray(r0), jnp.asarray(off3),
-                jnp.asarray(off1), "quadratic", 1)
-            out[dt] = (np.asarray(best), np.asarray(arg))
-        finally:
-            dr.SCORE_TAP_DTYPE = None
-    np.testing.assert_array_equal(out[jnp.float32][1], out[jnp.bfloat16][1])
-    np.testing.assert_allclose(out[jnp.float32][0], out[jnp.bfloat16][0],
-                               rtol=5e-3)
-
-
 def test_coherent_integration():
     """Coherent K-block integration: complex-window sum with data-aided
     nav-bit alignment. At practical C/N0 it matches the noncoherent
@@ -663,41 +627,3 @@ def test_windowed_nonzero_time_origin():
         assert rel.max() < 5e-3, (name, rel.max())
     assert int(np.argmax(np.asarray(fac.code_mag)[0])) == int(
         np.argmax(np.asarray(direct.code_mag)[0]))
-
-
-def test_int8_tap_scoring_matches_f32():
-    """int8-quantized tap path (halved one-hot HBM traffic): within the
-    auto_windows no-clipping guarantee, scores match f32 to the window
-    quantization class (~1% of peak) with identical argmaxes."""
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(3)
-    n, c, w, g = 4, 8, 24, 20000
-    win = np.abs(rng.standard_normal((n, c, w))).astype(np.float32) * 0.3 + 0.1
-    win[:, :, 10:15] += [2, 6, 9, 6, 2]
-    los = rng.standard_normal((n, c, 3)).astype(np.float32)
-    los /= np.linalg.norm(los, axis=2, keepdims=True)
-    cen = (np.full((n, c), 12.0) + rng.standard_normal((n, c)) * 0.3
-           ).astype(np.float32)
-    coef = np.full((n, c), 0.02, np.float32)
-    r0 = np.full((n, c), 2.2e7, np.float32)
-    # spans sized so idx stays inside [1, w-2] — the regime auto_windows
-    # guarantees in production (no clipped extrapolation)
-    o3 = (rng.standard_normal((g, 3)) * 120).astype(np.float32)
-    o1 = (rng.standard_normal(g) * 80).astype(np.float32)
-
-    outs = {}
-    old = dpe_real_ops.SCORE_TAP_DTYPE
-    try:
-        for name, dt in [("f32", jnp.float32), ("int8", jnp.int8)]:
-            dpe_real_ops.SCORE_TAP_DTYPE = dt
-            outs[name] = np.asarray(dpe_real_ops._score_chunk(
-                jnp.asarray(win), jnp.asarray(los), jnp.asarray(cen),
-                jnp.asarray(coef), jnp.asarray(r0), jnp.asarray(o3),
-                jnp.asarray(o1), "quadratic", 1))
-    finally:
-        dpe_real_ops.SCORE_TAP_DTYPE = old
-    f, q = outs["f32"], outs["int8"]
-    rel = np.abs(q - f).max() / np.abs(f).max()
-    assert rel < 0.015, rel
-    np.testing.assert_array_equal(q.argmax(1), f.argmax(1))

@@ -53,8 +53,7 @@ def test_live_fleet_two_radios_shared_clock():
     through acquire -> track -> align -> per-receiver DPE (r4 verdict
     item #5). Asserts the flow contract — alignment, fix agreement
     within grid noise, complete delivery accounting — not wall-clock
-    budgets (CI boxes contend; the strict zero-miss run is the TPU
-    FLEETLIVE artifact)."""
+    budgets (CI boxes contend)."""
     import copy
 
     from navlab_dpe_sdr_tpu.io.frontend import (MultiSource,

@@ -113,8 +113,8 @@ def test_weighted_mean_device_matches_host(scene):
 
 def test_bench_parity_block(scene):
     """bench.py's on-device oracle runback (factorized-vs-direct
-    correlator + pallas-vs-XLA scorer) on CPU: tight agreement and no
-    crashes — the TPU run reports the same block in BENCH JSON."""
+    correlator) on CPU: tight agreement and no crashes — the GPU run
+    reports the same block in the bench JSON."""
     import os
     import sys
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -128,7 +128,6 @@ def test_bench_parity_block(scene):
     assert out["corr_flip_equal"] and out["corr_argmax_equal"], out
     assert out["corr_code_max_rel"] < 1e-4, out
     assert out["corr_carr_max_rel"] < 1e-4, out
-    assert out.get("pallas_score_max_rel", 1.0) < 1e-4, out
 
 
 def test_full_ekf_mode(scene):

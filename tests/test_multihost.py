@@ -3,8 +3,8 @@
 SURVEY §2.3 P7: the reference has NO distributed backend (an unimplemented
 note at architecture.txt:92-101). Here, two OS processes — each owning 4
 virtual CPU devices — form one 8-device (chan=2, grid=4) global mesh via
-jax.distributed (Gloo collectives on CPU; the identical code rides ICI on
-a TPU pod), run the full sharded DPE step on identical inputs, and must
+jax.distributed (Gloo collectives on CPU; the identical code uses NCCL
+across GPUs), run the full sharded DPE step on identical inputs, and must
 both report the argmax the single-process path produces.
 """
 
@@ -114,6 +114,7 @@ def test_two_process_launcher_end_to_end(tmp_path):
 
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
     cmd = [sys.executable, "-m", "navlab_dpe_sdr_tpu.parallel.launch",
            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
            "--capture", dat, "--handoff", handoff_csv, "--blocks", "5",

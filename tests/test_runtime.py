@@ -300,3 +300,26 @@ def test_cli_live_paced(tmp_path):
     assert rec["iterations"] == 4
     assert rec["server_behind_max_ms"] < 500.0
     assert "rt_misses" in rec and "margin_x" in rec
+
+
+def test_native_load_always_runs_make(monkeypatch):
+    """load() goes through make even when a library is already there, so
+    the library always matches the committed sources."""
+    import subprocess as sp
+
+    from navlab_dpe_sdr_tpu.runtime import nativelib
+    real_run = sp.run
+    calls = []
+
+    def spy(cmd, **kw):
+        calls.append(cmd)
+        return real_run(cmd, **kw)
+
+    monkeypatch.setattr(nativelib, "_lib", None)
+    monkeypatch.setattr(nativelib.subprocess, "run", spy)
+    assert nativelib.load() is not None
+    assert nativelib._LIB.exists()
+    monkeypatch.setattr(nativelib, "_lib", None)
+    nativelib.load()
+    assert [c[:2] for c in calls] == [["make", "-C"], ["make", "-C"]]
+

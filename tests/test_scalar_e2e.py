@@ -25,7 +25,7 @@ FS = 2.5e6
 
 
 @pytest.mark.slow
-def test_scalar_pipeline_end_to_end(capture_40s):
+def test_scalar_pipeline_end_to_end(capture_40s, tmp_path):
     dat, meta, hand = capture_40s
     rf = SampleFile(dat, fs=meta["fs"])
     rx = ScalarReceiver(rf, meta["prns"])
@@ -60,7 +60,7 @@ def test_scalar_pipeline_end_to_end(capture_40s):
     assert abs(rx_time_a - t_expect) < 2e-6 * 40 + 1e-5
 
     # handoff export/import round trip
-    out = "/tmp/navlab_tpu_fixtures/test_handoff.csv"
+    out = str(tmp_path / "test_handoff.csv")
     h = rx.save_handoff(out)
     h2 = read_handoff(out)
     np.testing.assert_allclose(h2.x_ecef, h.x_ecef, rtol=0, atol=1e-9)

@@ -191,7 +191,7 @@ def test_third_order_holds_doppler_ramp():
 
 
 def test_epl_onehot_matches_gather():
-    """The merged half-chip one-hot E/P/L lookup (TPU path) must reproduce
+    """The merged half-chip one-hot E/P/L lookup (gather-free) must reproduce
     the direct three-gather lookup. floor(2x) determines all three taps
     exactly, so the only legitimate differences are f32 ties where x +/- 0.5
     itself rounds across a chip boundary — none at these test phases."""
@@ -228,7 +228,7 @@ def test_epl_onehot_factored_matches_gather():
 
 
 def test_epl_const_fold_matches_exact_gather():
-    """The constant-table period-fold lookup (TPU default) must equal the
+    """The constant-table period-fold lookup ("constfold") must equal the
     EXACT-arithmetic half-chip gather: j = floor(2*base0 + 2*rc) evaluated
     in f64, E/P/L = r2[j+1], r2[j], r2[j-1] (the _epl_onehot identities).
     Unlike the f32-base paths there is no rounding jitter to excuse."""
@@ -261,8 +261,8 @@ def test_epl_const_fold_matches_exact_gather():
 
 
 def test_tracking_converges_with_const_fold_path(monkeypatch):
-    """Closed-loop tracking through the constant-table replica path (the
-    TPU default) converges like the gather path: same pull-in, nav-bit
+    """Closed-loop tracking through the constant-table replica path
+    ("constfold") converges like the gather path: same pull-in, nav-bit
     stream intact. Trajectories are compared loosely — the const path's
     exact half-chip decisions differ from the f32-base gather at ~1
     boundary sample per window, which perturbs discriminator noise, not
@@ -314,7 +314,7 @@ def test_track_chunk_batched_matches_sequential():
 
 
 def test_track_chunk_unroll_invariant():
-    """lax.scan unroll (the TPU default is 8) must not change the tracking
+    """lax.scan unroll must not change the tracking
     trajectory. The carry dependency sequences the per-window math
     identically, but XLA may fuse/reassociate the unrolled bodies
     differently, so outputs agree to f32-ulp class, not bit-exactly."""
@@ -334,8 +334,8 @@ def test_track_chunk_unroll_invariant():
 
 
 def test_correlate_step_onehot_path_matches_gather_path(monkeypatch):
-    """Full _correlate_step parity between the one-hot (TPU) and gather
-    (CPU) replica strategies — segment sums, not just replicas."""
+    """Full _correlate_step parity between the one-hot and gather
+    replica strategies — segment sums, not just replicas."""
     prn, rc0, ri0, fi0 = 9, 321.5, 0.3, -650.0
     raw = _make_blocks(prn, 1, rc0, ri0, fi0)[0]
     tab = jnp.asarray(ca_table([prn]).astype(np.float32))
@@ -466,32 +466,14 @@ def test_coherent_mode_weak_signal_gain():
                                                      fi_err_8)
 
 
-def test_replica_strategy_calibration(tmp_path, monkeypatch):
-    """Runtime replica-strategy selection (r4 verdict #6): the one-shot
-    micro-benchmark produces a cached verdict, env overrides win, and an
-    explicitly-forced strategy tracks identically in class to the
-    default (the candidates are semantically equivalent)."""
-    monkeypatch.setenv("NAVLAB_CACHE_DIR", str(tmp_path))
-    monkeypatch.delenv("NAVLAB_TRACK_STRATEGY", raising=False)
-    tracking._TRACKCAL_MEM.clear()
-
-    cal = tracking.calibrate_replica_strategy(steps=8, repeats=2)
-    assert cal["chosen"] in cal["ms_per_step"]
-    assert all(v > 0 for v in cal["ms_per_step"].values())
-    # file round-trip: next resolve must read the cached verdict, and on
-    # CPU the structural choice short-circuits to the gather heuristic
-    import json
-    with open(tracking._trackcal_path()) as f:
-        assert json.load(f)["chosen"] == cal["chosen"]
-    import jax
-    if jax.default_backend() == "tpu":   # cached verdict applies on TPU
-        assert tracking.replica_strategy(1) == cal["chosen"]
-    else:                                # structural gather heuristic
-        assert tracking.replica_strategy(1) == "auto"
-    monkeypatch.setenv("NAVLAB_TRACK_STRATEGY", "factored")
-    assert tracking.replica_strategy(1) == "factored"
-
-    # forced strategies agree (same segment-sum contract)
+# constfold decides half-chip boundaries in exact arithmetic where the
+# f32-base paths round: ~1 sample of 2500 per window takes the other tap,
+# a few 1e-3 of the prompt after loop feedback
+@pytest.mark.parametrize("strategy, rtol", [("factored", 1e-4),
+                                            ("constfold", 5e-3)])
+def test_forced_replica_strategies_agree(strategy, rtol):
+    """The gather-free replica constructions, forced by name, track like
+    the default gather path (same segment-sum contract)."""
     prn, rc0, fi0 = 3, 100.0, 500.0
     raw = jnp.asarray(_make_blocks(prn, 10, rc0, 0.1, fi0))
     tab = jnp.asarray(ca_table([prn]).astype(np.float32))
@@ -500,6 +482,6 @@ def test_replica_strategy_calibration(tmp_path, monkeypatch):
     _, la = tracking.track_chunk(st0, raw, tab, FS, FCAID,
                                  strategy="gather")
     _, lb = tracking.track_chunk(st0, raw, tab, FS, FCAID,
-                                 strategy="factored")
+                                 strategy=strategy)
     np.testing.assert_allclose(np.asarray(la.iP), np.asarray(lb.iP),
-                               rtol=1e-4, atol=1e-2)
+                               rtol=rtol, atol=1e-2)
